@@ -2,7 +2,7 @@ import os, sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import time, sys, jax, jax.numpy as jnp
-import duckdb_cubit_tpu
+import duckdb_cubit
 import numpy as np
 
 N = 1<<23

@@ -1,16 +1,15 @@
 #!/usr/bin/env python
 """Scaling report: engine throughput on 1 device vs an 8-device mesh.
 
-BASELINE.json asks for rows/s scaling at 1 chip / 1 host / N hosts.  Real
-multi-chip hardware is not attached in this environment, so this script
-measures STRONG SCALING STRUCTURE on the virtual CPU mesh (the same code
-path a pod slice runs: GSPMD + the explicit shard_map radix exchange) and
-records per-configuration rows/s, scaling efficiency, and the exchange's
-modeled wire bytes (host-static: n^2 * quota * row_bytes).  CPU-mesh
-numbers measure collective/communication structure, not TPU kernel speed —
-the single-chip TPU numbers live in bench.py / BENCH_r*.json.
+BASELINE.json asks for rows/s scaling at 1 device / 1 host / N hosts.  On a
+virtual CPU mesh (XLA_FLAGS=--xla_force_host_platform_device_count=8) this
+script measures STRONG SCALING STRUCTURE of the same code path a GPU mesh
+runs (GSPMD + the explicit shard_map radix exchange) and records
+per-configuration rows/s, scaling efficiency, and the exchange's modeled
+wire bytes (host-static: n^2 * quota * row_bytes).  CPU-mesh numbers
+measure collective/communication structure, not device speed.
 
-Writes ARTIFACTS/scaling_r05.json.
+Prints the report as JSON.
 """
 import json
 import os
@@ -43,7 +42,7 @@ def q6_scaling(n_rows=1 << 21):
     """Distributed fused bitmap scan+sum (engine distributed kernel)."""
     import jax.numpy as jnp
 
-    from duckdb_cubit_tpu.parallel import distributed, mesh as M
+    from duckdb_cubit.parallel import distributed, mesh as M
 
     rng = np.random.default_rng(0)
     wa = rng.integers(0, 2**32, n_rows // 32, dtype=np.uint32)
@@ -67,11 +66,11 @@ def q6_scaling(n_rows=1 << 21):
 
 def exchange_join_scaling(n_rows=1 << 20):
     """Engine explicit radix-exchange join, 1 vs 8 devices."""
-    from duckdb_cubit_tpu.api import Connection
-    from duckdb_cubit_tpu.config import EngineConfig
-    from duckdb_cubit_tpu.parallel import mesh as M
-    from duckdb_cubit_tpu.plan import optimizer as opt
-    from duckdb_cubit_tpu.plan import physical as P
+    from duckdb_cubit.api import Connection
+    from duckdb_cubit.config import EngineConfig
+    from duckdb_cubit.parallel import mesh as M
+    from duckdb_cubit.plan import optimizer as opt
+    from duckdb_cubit.plan import physical as P
 
     rng = np.random.default_rng(1)
     tables = {
@@ -118,20 +117,14 @@ def exchange_join_scaling(n_rows=1 << 20):
 
 def main():
     report = {
-        "note": ("virtual 8-device CPU mesh: measures collective/exchange "
-                 "structure, not TPU kernel speed (see BENCH_r*.json for "
-                 "single-chip TPU numbers)"),
+        "note": ("measures collective/exchange structure on the "
+                 "platform below; on a CPU mesh, not device speed"),
         "platform": jax.default_backend(),
         "devices": len(jax.devices()),
         "q6_distributed_scan": q6_scaling(),
         "exchange_hash_join": exchange_join_scaling(),
     }
-    os.makedirs("ARTIFACTS", exist_ok=True)
-    path = "ARTIFACTS/scaling_r05.json"
-    with open(path, "w") as f:
-        json.dump(report, f, indent=2)
     print(json.dumps(report, indent=2))
-    print("wrote", path)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,107 @@
+"""Result materialization: device Relation -> host rows, DuckDB-style text.
+
+Replaces the reference's QueryResult/MaterializedQueryResult rendering; value
+formatting follows DuckDB's CSV conventions so golden-answer diffs work:
+decimals print with their full scale, dates ISO, doubles shortest-round-trip.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..plan.physical import Relation
+from ..types import TypeId, days_to_date
+
+
+def format_decimal(v: int, scale: int) -> str:
+    if scale == 0:
+        return str(int(v))
+    v = int(v)
+    sign = "-" if v < 0 else ""
+    v = abs(v)
+    ip, fp = divmod(v, 10**scale)
+    return f"{sign}{ip}.{fp:0{scale}d}"
+
+
+def format_value(v, dtype, dictionary=None) -> str:
+    if v is None:
+        return "NULL"
+    if dtype.id == TypeId.DECIMAL:
+        return format_decimal(int(v), dtype.scale)
+    if dtype.id == TypeId.DATE:
+        return days_to_date(int(v)).isoformat()
+    if dtype.id == TypeId.VARCHAR:
+        return dictionary[int(v)].decode("latin-1")
+    if dtype.id == TypeId.CHAR1:
+        return chr(int(v))
+    if dtype.id == TypeId.DOUBLE:
+        return repr(float(v))
+    if dtype.id == TypeId.BOOL:
+        return "true" if v else "false"
+    return str(int(v))
+
+
+# DOUBLE cells of two correct executions may differ in their last bits: a
+# fused device program reduces and divides in another order than op-by-op
+# execution (XLA rewrites a/b/c as a/(b*c), for one)
+DOUBLE_REL_TOL = 1e-9
+
+
+def same_rows(a: list[list[str]], b: list[list[str]], rel: Relation) -> bool:
+    """Order-insensitive equality of two `to_strings` results with the
+    columns of `rel`; DOUBLE cells compare within DOUBLE_REL_TOL."""
+    dbl = [c.dtype.id == TypeId.DOUBLE for c in rel.columns.values()]
+
+    def key(row):
+        return tuple(f"{float(c):.6g}" if d and c != "NULL" else c
+                     for c, d in zip(row, dbl))
+
+    if len(a) != len(b):
+        return False
+    for x, y in zip(sorted(a, key=key), sorted(b, key=key)):
+        for cx, cy, d in zip(x, y, dbl):
+            if cx == cy:
+                continue
+            if not d or "NULL" in (cx, cy):
+                return False
+            fx, fy = float(cx), float(cy)
+            if abs(fx - fy) > DOUBLE_REL_TOL * max(abs(fx), abs(fy)):
+                return False
+    return True
+
+
+def verify_checks(rel: Relation):
+    """Verify deferred runtime assertions (capacity-overflow guards attached
+    by the compiled executor) — called at materialization, the first point
+    where a device->host transfer happens anyway."""
+    for name, ok in getattr(rel, "checks", ()) or ():
+        if not bool(ok):
+            raise RuntimeError(f"runtime check failed: {name}")
+
+
+def materialize(rel: Relation, columns: list[str] | None = None):
+    """-> (column_names, list of row tuples of python values)."""
+    verify_checks(rel)
+    names = columns or list(rel.columns.keys())
+    mask = np.asarray(rel.mask)
+    host = {}
+    for n in names:
+        c = rel.columns[n]
+        arr = np.asarray(c.array)[mask]
+        if c.valid is not None:
+            valid = np.asarray(c.valid)[mask]
+            arr = [None if not v else a for a, v in zip(arr.tolist(), valid)]
+        host[n] = (arr, c.dtype, c.dictionary)
+    n_rows = int(mask.sum())
+    rows = []
+    for i in range(n_rows):
+        rows.append(tuple(host[n][0][i] for n in names))
+    return names, rows, [(host[n][1], host[n][2]) for n in names]
+
+
+def to_strings(rel: Relation, columns: list[str] | None = None) -> list[list[str]]:
+    names, rows, metas = materialize(rel, columns)
+    out = []
+    for row in rows:
+        out.append([format_value(v, dt, d) for v, (dt, d) in zip(row, metas)])
+    return out

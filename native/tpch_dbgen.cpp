@@ -1,4 +1,4 @@
-// Columnar TPC-H data generator for the TPU-native query engine.
+// Columnar TPC-H data generator for the duckdb_cubit query engine.
 //
 // Produces TPC-H tables directly as columnar buffers (int64/int32 numerics,
 // epoch-day dates, fixed-width zero-padded byte strings) so the Python side

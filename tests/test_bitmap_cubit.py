@@ -1,8 +1,8 @@
 import jax.numpy as jnp
 import numpy as np
 
-from duckdb_cubit_tpu.index.cubit import CubitIndex
-from duckdb_cubit_tpu.ops import bitmap as bm
+from duckdb_cubit.index.cubit import CubitIndex
+from duckdb_cubit.ops import bitmap as bm
 
 
 def _mk(codes, n_bins, capacity=None, num_rows=None):

@@ -11,10 +11,10 @@ must validate their build-side uniqueness assumption at runtime.
 import numpy as np
 import pytest
 
-from duckdb_cubit_tpu.api import Connection
-from duckdb_cubit_tpu.exec.executor import Executor
-from duckdb_cubit_tpu.ops import expressions as E
-from duckdb_cubit_tpu.plan import physical as P
+from duckdb_cubit.api import Connection
+from duckdb_cubit.exec.executor import Executor
+from duckdb_cubit.ops import expressions as E
+from duckdb_cubit.plan import physical as P
 
 
 @pytest.fixture()
@@ -36,7 +36,7 @@ def test_set_index_scan_max_count_changes_plan(conn):
     # the mask-based scan: the prepared decode capacity must change.
     def decode_cap():
         plan = conn.binder.bind_sql("SELECT k FROM big WHERE v = 42")
-        from duckdb_cubit_tpu.plan import optimizer as opt
+        from duckdb_cubit.plan import optimizer as opt
         plan = opt.optimize(plan, conn.catalog)
         ctx = P.ExecContext(conn.catalog, conn.executor.config)
         plan.prepare(ctx)
@@ -72,7 +72,7 @@ def test_enable_verification_runs_both_paths(conn):
 def _exec(catalog, plan, config=None):
     ex = Executor(catalog, config)
     rel = ex.execute(plan)
-    from duckdb_cubit_tpu.exec.result import materialize
+    from duckdb_cubit.exec.result import materialize
     _, rows, _ = materialize(rel)
     return rows
 
@@ -81,7 +81,7 @@ def _three_key_catalog():
     """Engineered 3-key tables where hash-combined keys would collide only
     if the collision re-check is missing (we can't force a real 64-bit hash
     collision, so instead verify exact semantics on all join types)."""
-    from duckdb_cubit_tpu.storage.table import Catalog, from_numpy
+    from duckdb_cubit.storage.table import Catalog, from_numpy
 
     cat = Catalog()
     cat.register(from_numpy("probe", {
@@ -134,8 +134,8 @@ def test_single_match_uniqueness_check_recovers_or_fires():
     uniqueness check and falls back to the expansion join (the analog of
     the reference regrowing a too-small hash table, join_hashtable.cpp:1370);
     the whole-plan compiled path (PreparedQuery) still fail-stops."""
-    from duckdb_cubit_tpu.config import EngineConfig
-    from duckdb_cubit_tpu.storage.table import Catalog, from_numpy
+    from duckdb_cubit.config import EngineConfig
+    from duckdb_cubit.storage.table import Catalog, from_numpy
 
     def cat():
         c = Catalog()
@@ -160,7 +160,7 @@ def test_single_match_uniqueness_check_recovers_or_fires():
 
 
 def test_statistics_propagation_prunes_filters(conn):
-    from duckdb_cubit_tpu.plan import optimizer as opt
+    from duckdb_cubit.plan import optimizer as opt
 
     # always-true conjunct dropped, always-false marks scan empty
     plan = conn.binder.bind_sql("SELECT k FROM big WHERE v >= 0")
@@ -176,7 +176,7 @@ def test_statistics_propagation_prunes_filters(conn):
 
 
 def test_pack_range_check_fires_on_out_of_range_second_key():
-    from duckdb_cubit_tpu.storage.table import Catalog, from_numpy
+    from duckdb_cubit.storage.table import Catalog, from_numpy
 
     cat = Catalog()
     cat.register(from_numpy("p", {
@@ -198,8 +198,8 @@ def test_query_timeout_guard():
     import numpy as np
     import pytest
 
-    from duckdb_cubit_tpu.api import Connection, QueryTimeoutError
-    from duckdb_cubit_tpu.config import EngineConfig
+    from duckdb_cubit.api import Connection, QueryTimeoutError
+    from duckdb_cubit.config import EngineConfig
 
     cfg = EngineConfig()
     cfg.query_timeout_s = 1.5
@@ -212,3 +212,57 @@ def test_query_timeout_guard():
                  "WHERE a.k + b.k >= 0")
     cfg.query_timeout_s = 0.0
     assert conn.sql("SELECT count(*) AS c FROM big").strings() == [["40000"]]
+
+
+class _FakeDevice:
+    def __init__(self, stats):
+        self._stats = stats
+
+    def memory_stats(self):
+        return self._stats
+
+
+@pytest.mark.parametrize("stats,want", [
+    ({"bytes_limit": 60 << 30}, 30 << 30),     # half the allocator limit
+    (None, 12 << 30),                          # CPU: no allocator stats
+    ({"bytes_in_use": 1 << 20}, 12 << 30),     # stats without a limit
+])
+def test_default_memory_limit_from_device(stats, want):
+    from duckdb_cubit import config as C
+
+    assert C.default_memory_limit(_FakeDevice(stats)) == want
+
+
+def test_memory_limit_defaults_to_device_share_and_stays_settable():
+    from duckdb_cubit.config import EngineConfig, default_memory_limit
+
+    assert EngineConfig().memory_limit == default_memory_limit() > 0
+    assert EngineConfig(memory_limit=123).memory_limit == 123
+    c = Connection()
+    c.sql("SET memory_limit = 0")      # 0 after construction: multi-pass off
+    assert c.config.memory_limit == 0
+
+
+@pytest.mark.parametrize("env_dir", [False, True], ids=["unset", "set"])
+def test_compile_cache_dir(env_dir, tmp_path):
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items()
+           if k != "JAX_COMPILATION_CACHE_DIR"}
+    env["JAX_PLATFORMS"] = "cpu"
+    if env_dir:
+        env["JAX_COMPILATION_CACHE_DIR"] = str(tmp_path / "cc")
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import duckdb_cubit, jax; "
+         "print(jax.config.jax_compilation_cache_dir); "
+         "print(duckdb_cubit.compile_cache_dir())"],
+        cwd=root, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    jax_dir, ours = out.stdout.split()
+    want = str(tmp_path / "cc") if env_dir else os.path.join(root,
+                                                             ".jax_cache")
+    assert jax_dir == ours == want

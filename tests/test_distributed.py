@@ -1,6 +1,6 @@
 """Distributed engine execution on the virtual 8-device CPU mesh.
 
-The real Executor over row-sharded tables (SURVEY §2.2's TPU equivalent of
+The real Executor over row-sharded tables (SURVEY §2.2's device equivalent of
 the reference's morsel-driven shared scans, task_scheduler.cpp:31): base
 columns and CUBIT bitmap words carry NamedShardings over the "d" axis and
 plans GSPMD-compile with XLA-inserted collectives.  Golden answers must stay
@@ -11,10 +11,10 @@ by design.
 import jax
 import pytest
 
-from duckdb_cubit_tpu.api import connect
-from duckdb_cubit_tpu.exec.result import to_strings
-from duckdb_cubit_tpu.parallel.mesh import make_mesh
-from duckdb_cubit_tpu.tpch import answers, queries
+from duckdb_cubit.api import connect
+from duckdb_cubit.exec.result import to_strings
+from duckdb_cubit.parallel.mesh import make_mesh
+from duckdb_cubit.tpch import answers, queries
 
 pytestmark = pytest.mark.skipif(
     len(jax.devices()) < 8 or not answers.answers_available(),

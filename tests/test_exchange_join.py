@@ -10,11 +10,11 @@ quota-doubling retry (SetRepartitionRadixBits analog).
 import numpy as np
 import pytest
 
-from duckdb_cubit_tpu.api import Connection, connect
-from duckdb_cubit_tpu.config import EngineConfig
-from duckdb_cubit_tpu.parallel import mesh as M
-from duckdb_cubit_tpu.plan import physical as P
-from duckdb_cubit_tpu.tpch import answers
+from duckdb_cubit.api import Connection, connect
+from duckdb_cubit.config import EngineConfig
+from duckdb_cubit.parallel import mesh as M
+from duckdb_cubit.plan import physical as P
+from duckdb_cubit.tpch import answers
 
 N_DEV = 8
 
@@ -45,10 +45,10 @@ SQL = ("SELECT sum(pv * bv) AS s, count(*) AS c FROM probe, build "
 
 def _join_ops(conn, sql):
     plan = conn.binder.bind_sql(sql)
-    from duckdb_cubit_tpu.plan import optimizer as opt
+    from duckdb_cubit.plan import optimizer as opt
     plan = opt.optimize(plan, conn.catalog)
     rel = conn.executor.execute(plan, optimize=False)
-    from duckdb_cubit_tpu.exec.result import to_strings
+    from duckdb_cubit.exec.result import to_strings
     return to_strings(rel), [o for o in plan.walk()
                              if isinstance(o, P.HashJoin)]
 

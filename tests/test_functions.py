@@ -10,8 +10,8 @@ through the full SQL path.
 import numpy as np
 import pytest
 
-from duckdb_cubit_tpu.api import Connection
-from duckdb_cubit_tpu.types import DATE
+from duckdb_cubit.api import Connection
+from duckdb_cubit.types import DATE
 
 
 @pytest.fixture()

@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from duckdb_cubit_tpu.ops import groupby, join, kernels
+from duckdb_cubit.ops import groupby, join, kernels
 
 
 def test_build_probe_unique_keys():

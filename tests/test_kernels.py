@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from duckdb_cubit_tpu.ops import kernels
+from duckdb_cubit.ops import kernels
 
 
 def test_masked_sum_exact_large_values():

@@ -12,8 +12,8 @@ import os
 import numpy as np
 import pytest
 
-from duckdb_cubit_tpu.api import Connection, connect
-from duckdb_cubit_tpu.tpch import answers
+from duckdb_cubit.api import Connection, connect
+from duckdb_cubit.tpch import answers
 
 QUERY_DIR = "/root/reference/extension/tpch/dbgen/queries"
 tpch_available = os.path.isdir(QUERY_DIR) and answers.answers_available()
@@ -143,8 +143,8 @@ def test_out_of_core_join_rooted_stage():
     external-join decomposition, reference join_hashtable.cpp:1312)."""
     import numpy as np
 
-    from duckdb_cubit_tpu.api import Connection
-    from duckdb_cubit_tpu.config import EngineConfig
+    from duckdb_cubit.api import Connection
+    from duckdb_cubit.config import EngineConfig
 
     rng = np.random.default_rng(0)
     n = 200_000

@@ -4,7 +4,7 @@ physical_asof_join.cpp, physical_hash_join.cpp full-outer phase)."""
 import numpy as np
 import pytest
 
-from duckdb_cubit_tpu.api import Connection
+from duckdb_cubit.api import Connection
 
 
 @pytest.fixture()

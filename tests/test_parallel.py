@@ -2,7 +2,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from duckdb_cubit_tpu.parallel import distributed, exchange, mesh as M
+from duckdb_cubit.parallel import distributed, exchange, mesh as M
 
 
 def test_radix_exchange_routes_and_conserves():

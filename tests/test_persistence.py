@@ -4,8 +4,8 @@ checkpoint_manager.cpp, wal_replay.cpp)."""
 import numpy as np
 import pytest
 
-from duckdb_cubit_tpu.api import Connection
-from duckdb_cubit_tpu.storage.persist import open_database
+from duckdb_cubit.api import Connection
+from duckdb_cubit.storage.persist import open_database
 
 
 def _populate(conn):

@@ -12,11 +12,11 @@ import pytest
 
 import jax.numpy as jnp
 
-from duckdb_cubit_tpu.api import connect
-from duckdb_cubit_tpu.ops.expressions import Col
-from duckdb_cubit_tpu.plan import physical as P
-from duckdb_cubit_tpu.plan.physical import Relation, RelColumn
-from duckdb_cubit_tpu.types import INT64
+from duckdb_cubit.api import connect
+from duckdb_cubit.ops.expressions import Col
+from duckdb_cubit.plan import physical as P
+from duckdb_cubit.plan.physical import Relation, RelColumn
+from duckdb_cubit.types import INT64
 
 
 class _Fixed(P.PhysicalOperator):

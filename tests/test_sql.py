@@ -1,10 +1,10 @@
-"""SQL frontend tests: parse + bind + execute against golden answers."""
+"""SQL frontend tests: parse + bind + execute against the numpy oracle."""
 
 import pytest
 
-from duckdb_cubit_tpu.api import connect
-from duckdb_cubit_tpu.sql.parser import parse
-from duckdb_cubit_tpu.tpch import answers
+from duckdb_cubit.api import connect
+from duckdb_cubit.sql.parser import parse
+from duckdb_cubit.tpch import oracle
 
 
 @pytest.fixture(scope="module")
@@ -24,34 +24,45 @@ def test_parse_all_reference_queries():
 
 
 def test_sql_q6_matches_golden(conn):
-    rows = conn.sql("""
-        SELECT sum(l_extendedprice * l_discount) AS revenue
-        FROM lineitem
-        WHERE l_shipdate >= CAST('1994-01-01' AS date)
-          AND l_shipdate < CAST('1995-01-01' AS date)
-          AND l_discount BETWEEN 0.05 AND 0.07
-          AND l_quantity < 24
-    """).strings()
-    assert not answers.compare(rows, 0.01, 6)
+    assert not oracle.check(conn, 6)
 
 
 def test_sql_q1_matches_golden(conn):
-    rows = conn.sql("""
-        SELECT l_returnflag, l_linestatus,
-               sum(l_quantity) AS sum_qty,
-               sum(l_extendedprice) AS sum_base_price,
-               sum(l_extendedprice * (1 - l_discount)) AS sum_disc_price,
-               sum(l_extendedprice * (1 - l_discount) * (1 + l_tax)) AS sum_charge,
-               avg(l_quantity) AS avg_qty,
-               avg(l_extendedprice) AS avg_price,
-               avg(l_discount) AS avg_disc,
-               count(*) AS count_order
-        FROM lineitem
-        WHERE l_shipdate <= CAST('1998-09-02' AS date)
-        GROUP BY l_returnflag, l_linestatus
-        ORDER BY l_returnflag, l_linestatus
-    """).strings()
-    assert not answers.compare(rows, 0.01, 1)
+    assert not oracle.check(conn, 1)
+
+
+def test_sql_q3_matches_oracle(conn):
+    assert not oracle.check(conn, 3)
+
+
+def test_sql_q6_fused_scan_sum_matches_oracle():
+    from duckdb_cubit.plan import optimizer as opt
+    from duckdb_cubit.plan.physical import ExecContext, GroupAggregate
+
+    # at SF0.01 the index scan would decode row ids; with the decode
+    # thresholds at zero it keeps the bitmap and sums from its words, as
+    # at SF1 and above
+    conn = connect(sf=0.01)
+    conn.sql("SET index_scan_max_count = 0")
+    conn.sql("SET index_scan_percentage = 0")
+    plan = opt.optimize(conn.binder.bind_sql(oracle.SQL[6]), conn.catalog)
+    conn.executor.execute(plan, optimize=False)
+    agg = [o for o in plan.walk() if isinstance(o, GroupAggregate)]
+    fused = agg[0]._fused_pattern(ExecContext(conn.catalog, conn.config))
+    # l_extendedprice * l_discount < 2^31: the int32 words-fused sum
+    assert fused is not None and fused["prod_max"] < 2**31
+    assert not oracle.check(conn, 6)
+
+
+@pytest.mark.parametrize("got,ok", [
+    ([["1.00", 2.0000000001]], True),      # double within 1e-9
+    ([["1.00", 2.00001]], False),          # double beyond it
+    ([["1.01", 2.0]], False),              # a decimal one cent off
+    ([["1.00", 2.0], ["1.00", 2.0]], False),  # extra row
+])
+def test_oracle_compare(got, ok):
+    strings = [[str(c) for c in row] for row in got]
+    assert (not oracle.compare(strings, [["1.00", 2.0]])) == ok
 
 
 def test_sql_join_aggregate(conn):

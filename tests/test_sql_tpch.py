@@ -14,8 +14,8 @@ import os
 
 import pytest
 
-from duckdb_cubit_tpu.api import connect
-from duckdb_cubit_tpu.tpch import answers
+from duckdb_cubit.api import connect
+from duckdb_cubit.tpch import answers
 
 QUERY_DIR = "/root/reference/extension/tpch/dbgen/queries"
 

@@ -10,7 +10,7 @@ import os
 
 import pytest
 
-from duckdb_cubit_tpu.testing.sqllogic import run_file
+from duckdb_cubit.testing.sqllogic import run_file
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 FILES = sorted(glob.glob(os.path.join(HERE, "sqllogic", "*.test")))

@@ -4,7 +4,7 @@ surface of src/main/client_context.cpp + test/sql/ DDL/DML coverage)."""
 import numpy as np
 import pytest
 
-from duckdb_cubit_tpu.api import Connection
+from duckdb_cubit.api import Connection
 
 
 @pytest.fixture()
@@ -110,7 +110,7 @@ def test_statement_errors(conn):
 # ----------------------- base-table NULL storage (round 5) -------------
 def test_insert_null_values():
     import numpy as np
-    from duckdb_cubit_tpu.api import Connection
+    from duckdb_cubit.api import Connection
 
     conn = Connection()
     conn.sql("CREATE TABLE ns (i INTEGER, s VARCHAR, d DOUBLE)")
@@ -134,8 +134,8 @@ def test_insert_null_values():
 
 
 def test_null_survives_checkpoint(tmp_path):
-    from duckdb_cubit_tpu.api import Connection
-    from duckdb_cubit_tpu.storage.persist import open_database
+    from duckdb_cubit.api import Connection
+    from duckdb_cubit.storage.persist import open_database
 
     db = str(tmp_path / "db")
     conn = Connection().attach(db)
@@ -148,7 +148,7 @@ def test_null_survives_checkpoint(tmp_path):
 
 
 def test_select_without_from():
-    from duckdb_cubit_tpu.api import Connection
+    from duckdb_cubit.api import Connection
 
     conn = Connection()
     assert conn.sql("SELECT 1+2 AS a, 'x' AS s").strings() == [["3", "x"]]

@@ -7,9 +7,9 @@ double-formatting tolerance).
 
 import pytest
 
-from duckdb_cubit_tpu.exec import result as R
-from duckdb_cubit_tpu.exec.executor import Executor
-from duckdb_cubit_tpu.tpch import answers, load, queries
+from duckdb_cubit.exec import result as R
+from duckdb_cubit.exec.executor import Executor
+from duckdb_cubit.tpch import answers, load, queries
 
 pytestmark = pytest.mark.skipif(
     not answers.answers_available(), reason="reference answers not mounted")

@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from duckdb_cubit_tpu.ops import window as W
+from duckdb_cubit.ops import window as W
 
 
 def _ref_row_number(part, order):
@@ -87,7 +87,7 @@ def _brute_frame(g, k, v, lo, hi, mode, agg):
 
 def _frame_case(mode, lo, hi, agg, seed=0, n=500):
     import numpy as np
-    from duckdb_cubit_tpu.api import Connection
+    from duckdb_cubit.api import Connection
 
     rng = np.random.default_rng(seed)
     g = rng.integers(0, 7, n)

@@ -7,8 +7,8 @@ market segments, and the text-generation grammar) is normative TPC-H
 specification data owned by the Transaction Processing Performance Council.
 The reference embeds it as a C string (reference:
 extension/tpch/dbgen/include/dbgen/dists_dss.h); we restructure it into
-`duckdb_cubit_tpu/tpch/dists.json` as {name: [[token, weight], ...]} so the
-TPU engine's native generator can load it without any C-header parsing.
+`duckdb_cubit/tpch/dists.json` as {name: [[token, weight], ...]} so the
+engine's native generator can load it without any C-header parsing.
 
 Run once:  python tools/extract_dists.py
 """
@@ -17,7 +17,7 @@ import os
 import re
 
 REF = "/root/reference/extension/tpch/dbgen/include/dbgen/dists_dss.h"
-OUT = os.path.join(os.path.dirname(__file__), "..", "duckdb_cubit_tpu", "tpch", "dists.json")
+OUT = os.path.join(os.path.dirname(__file__), "..", "duckdb_cubit", "tpch", "dists.json")
 
 
 def parse_c_string_literal(src: str) -> str:

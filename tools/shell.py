@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Interactive SQL shell for duckdb_cubit_tpu.
+"""Interactive SQL shell for duckdb_cubit.
 
 Analog of the reference's CLI shell (reference tools/shell/): REPL over the
 Connection API with dot-commands for catalog inspection, timing, EXPLAIN,
@@ -28,9 +28,9 @@ def main():
         import jax
         jax.config.update("jax_platforms", "cpu")
 
-    from duckdb_cubit_tpu.api import connect
+    from duckdb_cubit.api import connect
 
-    print("duckdb_cubit_tpu shell — \\q quit, \\d tables, \\timing, "
+    print("duckdb_cubit shell — \\q quit, \\d tables, \\timing, "
           "\\explain <sql>, \\tpch <n>")
     t0 = time.time()
     conn = connect(sf=args.sf)
